@@ -5,11 +5,10 @@ PY ?= python
 .PHONY: test test8 cover bench experiment lint native clean
 
 test:
-	$(PY) -m pytest tests/ -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
 
 # run the suite against an 8-virtual-device CPU mesh (the routine run
-# uses 2 devices for speed; this covers the full dryrun-sized mesh
-# shapes once per round — VERDICT r3 weak #6)
+# uses 2 devices for speed; this covers larger mesh shapes)
 test8:
 	GRAMPLE_TEST_DEVICES=8 $(PY) -m pytest tests/ -q
 
@@ -31,7 +30,7 @@ experiment:
 		--nets $(NETS) --out results/acceptance.jsonl
 
 lint:
-	$(PY) -m compileall -q grample_tpu tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q grample_tpu tests bench.py chip_smoke.py __graft_entry__.py
 
 native:
 	$(PY) -c "from grample_tpu.native import load; assert load() is not None, 'native build failed'"

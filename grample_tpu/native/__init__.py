@@ -10,8 +10,9 @@ Two exports (see ``anchor.cpp``):
     parser for the numeric tail of large model files (reference
     ``model/reader.go:21-49``).
 
-The shared library is compiled on demand with ``g++ -O2`` into the
-package directory and cached by source mtime.  Everything degrades
+The shared library is compiled from ``anchor.cpp`` on first use with
+``g++ -O2`` into ``.cache/native/`` at the checkout root (git-ignored)
+and rebuilt when the source is newer.  Everything degrades
 gracefully: callers must treat :func:`load` returning ``None`` as
 "native tier unavailable" and fall back to pure Python/numpy.
 """
@@ -28,7 +29,10 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "anchor.cpp")
-_LIB = os.path.join(_DIR, "_native.so")
+_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(_DIR)), ".cache", "native"
+)
+_LIB = os.path.join(_BUILD_DIR, "_native.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
@@ -43,15 +47,22 @@ _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 def _build() -> bool:
     if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
         return True
+    # build to a per-process name, then rename: concurrent processes of
+    # one checkout never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
+        os.makedirs(_BUILD_DIR, exist_ok=True)
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
+            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, _LIB)
         return True
     except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

@@ -13,7 +13,7 @@
 // ("the build must first measure the Go reference") — compiled C++ is the
 // same performance class as compiled Go, so samples/s from this loop is an
 // honest stand-in for the reference binary on the same host.  It is also a
-// correctness oracle: its stationary distribution matches the TPU sweep's.
+// correctness oracle: its stationary distribution matches the device sweep's.
 //
 // tokenize_f64: whitespace tokenizer for the numeric tail of UAI files
 // (the fast path behind grample_tpu/uai/parser.py; reference FieldReader,

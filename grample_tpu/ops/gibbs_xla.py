@@ -1,6 +1,6 @@
-"""The Gibbs sweep compute path — dense XLA, MXU-shaped, scatter-free.
+"""The Gibbs sweep compute path — dense XLA, matmul-shaped, scatter-free.
 
-This is the hot loop of the whole framework: the TPU-native successor
+This is the hot loop of the whole framework: the batched successor
 of the reference's ``SampleVar`` inner loop (``sampler/gibbs-simple.go:
 163-271``), redesigned from per-site pointer chasing to batched tensor
 ops.  Design deltas vs the reference:
@@ -19,18 +19,17 @@ ops.  Design deltas vs the reference:
   - *per-variable ring-buffer history* (``buffer/circular.go``)  →
     incremental split-half count tensors.
 
-TPU mapping (the part that sets the performance ceiling): the sweep
-runs in the encoder's color-contiguous permuted variable space (see
-``pgm/encode.py``) with state ``[NVp, C]`` — the chain axis rides the
-128-wide vector lanes, and every state/count update is a contiguous
-``dynamic_update_slice`` of one color block.  **No scatter exists on
-the hot path** (XLA lowers scatters to serialized loops on TPU; the r1
-design was scatter-bound at ~3e8 site-samples/s — this layout measures
->1.5e9 on the same chip).  Per chromatic color:
+Device layout: the sweep runs in the encoder's color-contiguous
+permuted variable space (see ``pgm/encode.py``) with state ``[NVp, C]``
+— the chain axis is the minor (contiguous) one, and every state/count
+update is a contiguous ``dynamic_update_slice`` of one color block.
+**No scatter exists on the hot path**: XLA cannot prove the row
+updates collision-free, and a scatter would serialize them.  Per
+chromatic color:
 
-  base   = Wbase · state          (one MXU matmul; exact — all integers)
-  logits = onehot(base) · tables  (MXU contraction over local tables)
-  newv   = inverse-CDF draw       (fused VPU chain)
+  base   = Wbase · state          (one matmul; exact — all integers)
+  logits = onehot(base) · tables  (contraction over local tables)
+  newv   = inverse-CDF draw       (fused elementwise chain)
   state[block], counts[block]     (contiguous slice updates)
 
 Per-site cost is O(blanket) table work plus the base matmul; for
@@ -72,7 +71,7 @@ def _color_logits(state_p, tables, xs, wbase=None):
     """Unmasked log-conditionals of one chromatic group: [G, K, C].
 
     state_p: [NVp, C] float32 (permuted layout, values are exact small
-    ints).  Dense bank: base indices via the Wbase MXU matmul (exact:
+    ints).  Dense bank: base indices via the Wbase matmul (exact:
     local strides <= 1024, state <= 15, all < 2^24 in f32 HIGHEST) or
     int32-exact row-gathers, then a one-hot × local-table contraction.
     Gather bank (static skip when the caps hold no gather factors):
@@ -94,8 +93,9 @@ def _color_logits(state_p, tables, xs, wbase=None):
     else:
         if wbase is not None:
             if oa <= 256:
-                # all quantities are integers <= 256: exact in bf16, and
-                # the MXU runs bf16 at full rate (f32 HIGHEST: 3 passes)
+                # all quantities are integers <= 256: exact in bf16 with
+                # f32 accumulation (chip_smoke.py checks this on the card),
+                # and a bf16 product is the cheapest exact one
                 base = jnp.einsum(
                     "rv,vc->rc",
                     wbase.astype(jnp.bfloat16),
@@ -117,7 +117,7 @@ def _color_logits(state_p, tables, xs, wbase=None):
         onehot = (
             base[:, :, None, :]
             == jnp.arange(oa, dtype=base.dtype)[None, None, :, None]
-        )  # [G, F, OA, C] — exact 0/1; contraction over (f, oa) on the MXU.
+        )  # [G, F, OA, C] — exact 0/1; contraction over (f, oa).
         logits = jnp.einsum(
             "gfok,gfoc->gkc",
             local_tab,

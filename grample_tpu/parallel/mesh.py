@@ -4,7 +4,7 @@ The reference's only scaling mechanism is goroutines inside one OS
 process (``sampler/chain.go:197-215`` joined at ``cmd/root.go:476-479``);
 ``MergeChains`` (``chain.go:96-148``) and ``ChainConvergence``
 (``chain.go:32-92``) then reduce over chains on the main thread.  The
-TPU-native re-expression (SURVEY.md §2 parallelism table):
+accelerator re-expression (SURVEY.md §2 parallelism table):
 
   - a 2-D device mesh ``("variants", "chains")``:
       * ``variants`` shards the collapse-variant slot axis N — each
@@ -24,8 +24,10 @@ TPU-native re-expression (SURVEY.md §2 parallelism table):
 
 This workload has no tensor/pipeline/sequence parallel axes (SURVEY.md
 §2: models are ≲1 MB; the scale axis is chains), so dp-over-chains ×
-dp-over-variants is the full, honest sharding story.  All collectives
-ride ICI within a slice; DCN only sees the per-window host reduction.
+dp-over-variants is the full, honest sharding story.  The collectives
+are one count psum per window and the PSRF moment psums; every device
+reaches every other at the same rate, so the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations
@@ -92,11 +94,7 @@ STATE_SPEC = P(VARIANT_AXIS, CHAIN_AXIS, None)  # [N, C, V+1]
 HALVES_SPEC = P(VARIANT_AXIS, None, CHAIN_AXIS, None, None)  # [N, 2, C, V+1, K]
 
 
-@partial(
-    jax.jit,
-    static_argnames=("mesh", "count", "use_pallas", "cb", "pal_dims"),
-    donate_argnums=(1, 2),
-)
+@partial(jax.jit, static_argnames=("mesh", "count"), donate_argnums=(1, 2))
 def sharded_advance(
     mesh: Mesh,
     state,  # [N, C, V+1] int32, sharded (variants, chains)
@@ -106,44 +104,22 @@ def sharded_advance(
     num_sweeps,  # traced int scalar — one compile for every window size
     half_point,
     count: bool = True,
-    pal=None,  # pallas-layout constants, leading axis N (use_pallas only)
-    use_pallas: bool = False,
-    cb: int = 0,
-    pal_dims=(),  # the pal stack's pal_bank_dims (use_pallas only)
 ):
     """One advance window over the mesh.
 
     Returns (state, halves, delta) where ``delta`` [N, V+1, K] is the
     window's count increment summed over ALL chains of each variant —
     the collective MergeChains input (psum over the chains axis, then
-    implicitly all-gathered to hosts when fetched).
-
-    With ``use_pallas`` the VMEM-resident sweep kernel runs per device
-    over its local (variants, chains) shard — the kernel itself needs no
-    collectives, so shard_map composes with it directly; only the count
-    merge below is collective.
+    implicitly all-gathered to hosts when fetched).  The sweep itself
+    needs no collectives: each device advances its local shard.
     """
-    from grample_tpu.ops.gibbs_pallas import advance_chains_pallas
 
-    def body(state, halves, stack, pal, key, num_sweeps, half_point):
-        n_local = state.shape[0]
-        if use_pallas:
-            # one seed per device shard: the kernel derives per-cell
-            # counters from its seed, so shards must never share one
-            skey = jax.random.fold_in(
-                jax.random.fold_in(key, lax.axis_index(VARIANT_AXIS)),
-                lax.axis_index(CHAIN_AXIS),
-            )
-            state, halves = advance_chains_pallas(
-                pal, state, halves, skey, num_sweeps, half_point,
-                count=count, cb=cb, dims=pal_dims,
-            )
-        else:
-            keys = _global_fold(key, n_local)
-            fn = partial(_advance_one, count=count)
-            state, halves = jax.vmap(fn, in_axes=(0, 0, 0, 0, None, None))(
-                stack, state, halves, keys, num_sweeps, half_point
-            )
+    def body(state, halves, stack, key, num_sweeps, half_point):
+        keys = _global_fold(key, state.shape[0])
+        fn = partial(_advance_one, count=count)
+        state, halves = jax.vmap(fn, in_axes=(0, 0, 0, 0, None, None))(
+            stack, state, halves, keys, num_sweeps, half_point
+        )
         # int32 sum: counts are exact integers; f32 loses exactness past
         # 2^24 at large chain counts × window sizes
         delta = lax.psum(
@@ -151,18 +127,12 @@ def sharded_advance(
         )  # [n_local, V+1, K]
         return state, halves, delta
 
-    if pal is None:
-        pal = {}
     return jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(STATE_SPEC, HALVES_SPEC, ENC_SPEC, ENC_SPEC, P(), P(), P()),
+        in_specs=(STATE_SPEC, HALVES_SPEC, ENC_SPEC, P(), P(), P()),
         out_specs=(STATE_SPEC, HALVES_SPEC, P(VARIANT_AXIS)),
-        # pallas_call outputs carry no varying-mesh-axes metadata, which
-        # trips shard_map's vma checker; the specs above are the
-        # hand-verified SPMD contract
-        check_vma=False,
-    )(state, halves, stack, pal, key, jnp.asarray(num_sweeps), jnp.asarray(half_point))
+    )(state, halves, stack, key, jnp.asarray(num_sweeps), jnp.asarray(half_point))
 
 
 @partial(jax.jit, static_argnames=("mesh", "measure"))
@@ -241,11 +211,6 @@ class ShardedChainGroup(ChainGroup):
                 f"chains axis {cdim}"
             )
 
-    def _local_chains(self) -> int:
-        """Per-device chain width: the Pallas kernel sees local shards."""
-        cdim = self.mesh.shape[CHAIN_AXIS]
-        return self.cpv // cdim if self.cpv % cdim == 0 else 0
-
     # -- sharded placement -------------------------------------------------
     def _shard(self, x, spec):
         return jax.device_put(x, NamedSharding(self.mesh, spec))
@@ -269,10 +234,6 @@ class ShardedChainGroup(ChainGroup):
         if self.stack is None:
             return
         self.stack = {k: self._shard(v, ENC_SPEC) for k, v in self.stack.items()}
-        if self.pal_stack is not None:
-            self.pal_stack = {
-                k: self._shard(v, ENC_SPEC) for k, v in self.pal_stack.items()
-            }
         self.state = self._shard(self.state, STATE_SPEC)
 
     def _alloc_halves(self):
@@ -298,10 +259,6 @@ class ShardedChainGroup(ChainGroup):
         # .at[].set on sharded arrays preserves sharding; re-pin anyway so
         # layout never silently degrades to single-device.
         self.stack = {k: self._shard(v, ENC_SPEC) for k, v in self.stack.items()}
-        if self.pal_stack is not None:
-            self.pal_stack = {
-                k: self._shard(v, ENC_SPEC) for k, v in self.pal_stack.items()
-            }
         self.state = self._shard(self.state, STATE_SPEC)
 
     def restore_device_state(self, state, halves):
@@ -312,12 +269,10 @@ class ShardedChainGroup(ChainGroup):
         )
 
     def _advance_window(self, sweeps, half, count: bool):
-        """One sharded_advance call with the group's compute-path config."""
+        """One sharded_advance call over the group's mesh."""
         return sharded_advance(
             self.mesh, self.state, self.halves, self.stack, self._next_key(),
-            sweeps, half, count=count, pal=self.pal_stack,
-            use_pallas=self.use_pallas, cb=self.pal_block,
-            pal_dims=self.pal_dims,
+            sweeps, half, count=count,
         )
 
     # -- sharded compute ----------------------------------------------------

@@ -1,7 +1,7 @@
 """Moral-graph coloring for chromatic parallel Gibbs.
 
 The reference does sequential random-scan Gibbs (one site at a time,
-``sampler/gibbs-simple.go:148-160``) — inherently serial.  The TPU
+``sampler/gibbs-simple.go:148-160``) — inherently serial.  This
 design replaces it with *chromatic* Gibbs: color the moral graph (two
 variables conflict iff they share a factor) and update every variable of
 one color simultaneously.  Same-color variables are conditionally
@@ -54,7 +54,7 @@ def color_graph(num_vars: int, scopes: Sequence[np.ndarray]) -> np.ndarray:
 def verify_coloring(colors: np.ndarray, scopes: Sequence[np.ndarray]) -> None:
     """Assert no factor scope contains two same-colored distinct vars.
 
-    The chromatic-correctness check — the TPU analogue of running tests
+    The chromatic-correctness check — the batched analogue of running tests
     under the Go race detector (SURVEY.md §5): a coloring violation is
     exactly a write-write race between parallel site updates.
     """

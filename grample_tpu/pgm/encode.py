@@ -1,4 +1,4 @@
-"""Dense tensor encoding of a factor graph for the TPU Gibbs engine.
+"""Dense tensor encoding of a factor graph for the batched Gibbs engine.
 
 The reference walks pointer graphs per site update (``Function.Eval``
 with a mixed-radix index per call, ``model/function.go:146-202``).  Here
@@ -31,7 +31,7 @@ size OA = table_size / card(var):
 
   - **dense bank** (OA <= OA_DENSE_CAP): the table slice seen from v is
     pre-gathered into a LOCAL table [OA, K]; on device the lookup is a
-    one-hot × local-table contraction on the MXU — no runtime gather.
+    one-hot × local-table contraction — no runtime gather.
   - **gather bank** (OA > OA_DENSE_CAP, i.e. giant collapse-replacement
     factors): the device indexes the flat ``tables`` array directly.
     Rare by construction, so the serialized gather cost is bounded.
@@ -40,8 +40,8 @@ size OA = table_size / card(var):
 *permuted* variable space in which each chromatic group's variables
 occupy a contiguous block of rows: row of group-slot ``(ci, g)`` is
 ``ci*G + g``, followed by one sentinel row and a tail block for
-ungrouped vars (evidence / collapsed).  TPU scatters are slow and XLA
-cannot prove our row-scatters collision-free; with this layout every
+ungrouped vars (evidence / collapsed).  XLA cannot prove our
+row-scatters collision-free and would serialize them; with this layout every
 state/count update in the sweep is a contiguous ``dynamic_update_slice``
 — no scatter exists anywhere on the hot path.  Host-side conversion
 arrays (``new_of_old`` / ``old_of_new`` / ``slot_of_old``) map between
@@ -51,21 +51,22 @@ the layouts once per advance window, not per sweep.
 :func:`sweep_mode`:
 
   - ``"matmul"``: per-color constant stride matrices ``sw_wbase [NC,
-    G*F, NVp]`` turn the neighbor-state gather into one MXU matmul per
+    G*F, NVp]`` turn the neighbor-state gather into one matmul per
     color (``base = Wbase @ state``).  All quantities are small exact
     integers (strides are LOCAL mixed-radix, <= OA_DENSE_CAP; state
-    <= 15), exact even in bf16 matmuls.  This is the fast path: measured
-    ~1.7x over row-gathers on TPU v5e.
+    <= 15), exact even in bf16 matmuls.  The default.  Which of the
+    three modes is fastest on the GPU is not measured yet (ROADMAP
+    queue 1 item 3).
   - ``"rowgather"``: the SAME dense local-table bank (one-hot × local
-    table on the MXU), but base indices come from int32 row-gathers over
+    table), but base indices come from int32 row-gathers over
     ``sw_scope_vars``/``sw_other_strides`` instead of the Wbase matmul.
-    Used when the Wbase constants (per variant slot!) would blow the HBM
-    budget — e.g. many-variant adaptive runs on large nets (Promedus).
-    Slightly slower base step, identical everything else.
+    Used when the Wbase constants (per variant slot!) would exceed
+    ``WBASE_TOTAL_BUDGET`` — e.g. many-variant adaptive runs on large
+    nets (Promedus).  Identical everything else.
   - ``"gather"``: int32 flat-table gathers for EVERY incidence — no
     local tables, no one-hot.  Last resort, when even the local-table
-    bank would blow HBM across variant slots (very high-degree models
-    with huge per-var table slices).
+    bank would exceed ``LOCAL_TABLES_TOTAL_BUDGET`` across variant
+    slots (very high-degree models with huge per-var table slices).
 
 A sentinel padding variable lives at the row after the group blocks
 (card 1, never updated); all index padding points at it so gathers stay
@@ -84,46 +85,45 @@ import numpy as np
 from grample_tpu.pgm.coloring import color_graph, color_groups, verify_coloring
 from grample_tpu.pgm.discrete import LOG_EPS, MAX_TABLE_SIZE, DiscreteModel, table_strides
 
-#: Largest local-table row count the dense (MXU one-hot) path materializes
+#: Largest local-table row count the dense (one-hot) path materializes
 #: for PLAIN encodings.  Nearly every base factor in the reference suite
 #: fits (SURVEY.md §6); bigger local tables (dv-rel's 1024-entry tables)
 #: go to the gather bank instead of inflating the padded [*, OA, K]
 #: tensors — one outsized incidence would otherwise multiply across every
 #: (var, factor) slot of every stacked variant.  <= 256 also keeps base
-#: indices bf16-exact, which the MXU base matmul and the Pallas kernel
-#: rely on for full-rate matmuls.
+#: indices bf16-exact, which the bf16 base matmul relies on.
 OA_DENSE_CAP = 32
 
 #: Largest base-model incidence (local rows) the encoder will dense-ify
-#: to keep a model's encoding free of LIVE gather-bank rows.  The
-#: gather bank with live rows under >= 2 stacked variants hard-crashes
-#: the TPU worker (r4: deterministic on dv-rel_3/dv-rel_4HW, whose
-#: scope-10 1024-entry tables make every incidence OA 512), and the
-#: dense one-hot path at identical caps runs clean — so when the
-#: largest base incidence fits this bound, the dense threshold is
-#: raised to cover it (dv-rel_3: ~29 MB of local tables per slot).
-#: Models beyond the bound keep the gather bank (documented fallback).
+#: to keep a model's encoding free of LIVE gather-bank rows, the slow
+#: path under >= 2 stacked variants (dv-rel_3/dv-rel_4HW's scope-10
+#: 1024-entry tables make every incidence OA 512).  When the largest
+#: base incidence fits this bound, the dense threshold is raised to
+#: cover it (dv-rel_3: ~29 MB of local tables per slot).  Models beyond
+#: the bound keep the gather bank (documented fallback).  Whether the
+#: gather bank is still the slow path on the GPU is not measured yet
+#: (ROADMAP queue 1 item 6).
 BASE_DENSE_LIMIT = 1024
 
 #: Dense classification cap for COLLAPSE-HEADROOM encodings.  Collapse
 #: replacement factors (blanket cliques) routinely exceed 32 local rows
 #: (binary blanket 9 -> OA 128); classifying them into the gather bank
-#: was both catastrophically slow (r3: the adaptive aux path ran 3
-#: orders of magnitude under the dense sweep) and the trigger of the r3
-#: TPU-worker crash (the counted XLA sweep with >= 2 stacked variants
-#: holding live gather-bank rows hard-crashed the worker on
-#: Promedus/Pedigree; the dense one-hot path at identical caps runs
-#: clean — measured r4).  Keeping collapse variants dense up to OA 256
-#: kills both: the adaptive candidate guard (``is_collapsible`` with
-#: ``oa_cap``) excludes variants that would need gather rows.
+#: puts the whole adaptive aux path on the slow gather path.  Keeping
+#: collapse variants dense up to OA 256 avoids that: the adaptive
+#: candidate guard (``is_collapsible`` with ``oa_cap``) excludes
+#: variants that would need gather rows.
 COLLAPSE_OA_DENSE_CAP = 256
 
 #: Total ``sw_wbase`` bytes across all stacked variant slots before the
-#: sweep falls back from the MXU matmul base path to int32 row-gathers.
+#: sweep falls back from the matmul base path to int32 row-gathers: it
+#: bounds the per-slot Wbase constants that the matmul mode keeps on the
+#: device.  The value selects sweep modes, so changing it is a measured
+#: change (ROADMAP queue 1 item 8).
 WBASE_TOTAL_BUDGET = 1024 * 1024 * 1024
 
 #: Total dense local-table bytes across all stacked variant slots before
-#: the sweep abandons the dense bank entirely for the all-gather mode.
+#: the sweep abandons the dense bank entirely for the all-gather mode: it
+#: bounds the device bytes of the dense bank's local tables.
 LOCAL_TABLES_TOTAL_BUDGET = 2 * 1024 * 1024 * 1024
 
 #: Resource-tier precedence for merging caps: a merged encoding must use
@@ -169,10 +169,10 @@ class EncodeCaps:
 
     @property
     def sweep_mode(self) -> str:
-        """Base-index device path: MXU matmul constants or int32 gathers.
+        """Base-index device path: matmul constants or int32 gathers.
 
         Decided by :func:`compute_caps` (the per-slot constants must fit
-        the HBM budget across ``slot_hint`` stacked variants).
+        ``WBASE_TOTAL_BUDGET`` across ``slot_hint`` stacked variants).
         """
         return self.base_mode
 
@@ -222,11 +222,11 @@ class EncodedModel:
     new_of_old: np.ndarray = None  # [V+1] int32 -> device row
     old_of_new: np.ndarray = None  # [NVp] int32 -> old var (padding -> V)
     slot_of_old: np.ndarray = None  # [V+1] int32 -> count slot (else num_slots)
-    # ---- dense color-major bank (the MXU sweep path) ----------------------
+    # ---- dense color-major bank (the matmul sweep path) -------------------
     # Seen from variable v and its j-th incident factor, the factor table
     # splits into OA "other assignments" × K own values: a LOCAL table.
     # Pre-gathered per chromatic group so the device lookup is one one-hot
-    # einsum on the MXU.  Scope vars are in the PERMUTED numbering.
+    # einsum.  Scope vars are in the PERMUTED numbering.
     sw_scope_vars: np.ndarray = None  # [NC, G, F, S] int32 (own pos → sentinel)
     sw_other_strides: np.ndarray = None  # [NC, G, F, S] int32 local mixed radix
     sw_local_tables: np.ndarray = None  # [NC, G, F, OA, K] f32 log (padding 0)
@@ -303,19 +303,20 @@ def compute_caps(
     have a larger scope/table).  Leave it off for plain-Gibbs runs — the
     chain runtime grows caps lazily (with a re-encode + recompile) if a
     variant ever outgrows them, so eager headroom is an optimization for
-    adaptive/collapsed runs, never a requirement (ADVICE.md r1, medium).
+    adaptive/collapsed runs, never a requirement.
 
     ``oa_dense_cap`` (0 = default) sets the dense-classification
     threshold: ``COLLAPSE_OA_DENSE_CAP`` for collapse-headroom caps so
     replacement factors stay on the dense one-hot path (the gather bank
-    crashed the TPU worker under stacked collapse variants, r3/r4),
-    ``OA_DENSE_CAP`` otherwise.
+    is the slow path under stacked collapse variants), ``OA_DENSE_CAP``
+    otherwise.
 
     Three tiers: the first pass assumes the dense (matmul/one-hot) bank;
-    if the per-slot Wbase constants would blow the HBM budget (Wbase
-    times ``slot_hint``), keep the dense bank but drop Wbase — base
-    indices via int32 row-gathers (``"rowgather"``).  Only if the dense
-    local tables THEMSELVES would blow HBM across slots does the second
+    if the per-slot Wbase constants would exceed ``WBASE_TOTAL_BUDGET``
+    (Wbase times ``slot_hint``), keep the dense bank but drop Wbase —
+    base indices via int32 row-gathers (``"rowgather"``).  Only if the
+    dense local tables THEMSELVES would exceed
+    ``LOCAL_TABLES_TOTAL_BUDGET`` across slots does the second
     pass reclassify every incidence into the flat-table gather bank
     (``"gather"``) — no local tables, no Wbase, no one-hot.
     """
@@ -350,10 +351,9 @@ def compute_caps(
             if raised_base and slots > 1:
                 # the dense-ified base encoding (raised oa threshold)
                 # inflated the local-table bank past budget at this slot
-                # hint, and the fallback is the flat gather bank — the
-                # configuration that hard-crashed the TPU worker under
-                # >=2 stacked variants (ADVICE r4).  Surface it rather
-                # than silently selecting it.
+                # hint, and the fallback is the flat gather bank, the
+                # slow path under >=2 stacked variants.  Surface it
+                # rather than silently selecting it.
                 import warnings
 
                 warnings.warn(
@@ -406,7 +406,7 @@ def _compute_caps_once(
     if group_cap <= 0:
         group_cap = pick_group_cap(colors, np.asarray(m.free_mask))
     groups = color_groups(colors, np.asarray(m.free_mask), group_cap)
-    # round the slot width to f32 sublane tiles (Pallas alignment)
+    # round the slot width to a multiple of 8 rows
     gcap = _roundup(max((g.size for g in groups), default=1), 8)
 
     collapse_scope = 0
@@ -502,9 +502,9 @@ def merge_caps(a: EncodeCaps, b: EncodeCaps) -> EncodeCaps:
         tail_cap=max(a.tail_cap, b.tail_cap),
         slot_hint=max(a.slot_hint, b.slot_hint),
         # mode precedence gather > rowgather > matmul: merging must never
-        # re-enable a resource tier the budget check rejected (ADVICE r2:
-        # the old `"gather" in (...)` test mapped rowgather back to matmul
-        # and re-materialized the per-slot Wbase HBM blowup)
+        # re-enable a resource tier the budget check rejected (a test
+        # of `"gather" in (...)` would map rowgather back to matmul and
+        # re-materialize the per-slot Wbase constants)
         base_mode=max(a.base_mode, b.base_mode, key=_MODE_RANK.__getitem__),
         oa_dense_cap=max(a.oa_dense_cap, b.oa_dense_cap),
     )
@@ -517,10 +517,8 @@ def caps_for_variants(
 
     The rnd (random-collapse) sampler builds its whole variant set
     before the first sweep, so it never needs collapse-headroom caps:
-    measuring the actual variants yields far tighter shapes — often
-    Pallas-eligible where the headroom estimate forces the XLA sweep
-    tiers that ran 50-250x slower and carried the r4 worker-crash
-    classes (VERDICT r4 missing #1/#5).  ``oa_dense_cap`` defaults to
+    measuring the actual variants yields far tighter shapes than the
+    headroom estimate.  ``oa_dense_cap`` defaults to
     the largest actual dense incidence (bounded by the per-variant
     guard ``is_collapsible(oa_cap=COLLAPSE_OA_DENSE_CAP)`` upstream).
     """
@@ -722,7 +720,7 @@ def encode_model(
     sw_wbase = None
     if caps.sweep_mode == "matmul":
         # base[g,f] = sum_s stride[g,f,s] * state[scope[g,f,s]] as one
-        # constant matrix per color: the MXU base path.  Entries are local
+        # constant matrix per color: the matmul base path.  Entries are local
         # mixed-radix strides (<= oa_cap <= 1024), exact in f32.
         sw_wbase = np.zeros((NC, gcap * F, NVp), dtype=np.float32)
         shape = sw_scope_vars.shape  # [NC, G, F, S]

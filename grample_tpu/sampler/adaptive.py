@@ -79,8 +79,8 @@ def adapt_step(
             raise ValueError(f"unknown adapt policy {policy!r}")
         targets = order[:take]
 
-    # Warm-start policy follows the GROUP ARCHITECTURE (r5 measurement,
-    # results/ref300_r5.jsonl vs r4 results/ref300.jsonl):
+    # Warm-start policy follows the GROUP ARCHITECTURE (measured in the
+    # reference-config acceptance runs, ``tools/experiments.py``):
     #
     # - "transplant" (SplitChainGroup): copy joint states from a plain
     #   slot.  Aux collapse variants are count-weightless (256 chains vs
@@ -100,8 +100,9 @@ def adapt_step(
     #   Grids_13), and the redraw acts as a mean-field re-equilibration:
     #   the re-initialized ensembles land closer to Boltzmann mode
     #   weights than the drifted plain slots and pull every variable's
-    #   merged estimate toward truth (Grids_13 300 s: mean Hellinger
-    #   0.3057 with redraw vs 0.3751 with transplant, plain 0.3766).
+    #   merged estimate toward truth (Grids_13 at one fixed budget: mean
+    #   Hellinger 0.3057 with redraw vs 0.3751 with transplant, plain
+    #   0.3766).
     warm = None
     donor = None
     if warm_start:

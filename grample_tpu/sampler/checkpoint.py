@@ -1,7 +1,8 @@
 """Checkpoint / resume for chain runs.
 
 The reference has none (SURVEY.md §5 flags this as a genuine gap: runs
-die with the process).  TPU pod runs are preemptible, so the engine
+die with the process).  Long runs on shared or preemptible machines
+can be cut, so the engine
 periodically snapshots everything needed to continue a run bit-exactly:
 chain states, split-half windows, count totals, the RNG step counter,
 and the collapse-variant models themselves (serialized structurally,

@@ -57,14 +57,13 @@ def is_collapsible(
 ) -> bool:
     """Can ``var`` be collapsed under the reference's guards?
 
-    ``oa_cap`` (0 = off) adds the TPU engine's dense-bank guard: every
+    ``oa_cap`` (0 = off) adds the batched engine's dense-bank guard: every
     incidence of the replacement factor must fit the dense
     classification (``table_size / card <= oa_cap``), i.e. the variant
     must not need gather-bank rows.  The reference has no such guard
     (its scalar loop costs the same either way,
     ``sampler/gibbs-collapsed.go:93``); here the gather bank under
-    stacked variants hard-crashed the TPU worker (r3 acceptance) and ran
-    ~3 orders of magnitude slower, so the adaptive controller only
+    stacked variants is the slow path, so the adaptive controller only
     builds dense-eligible variants (``pgm/encode.COLLAPSE_OA_DENSE_CAP``
     keeps every Promedus/Pedigree/Grids candidate eligible; it trims
     high-cardinality outliers like ObjectDetection's biggest blankets).

@@ -80,7 +80,6 @@ def main(argv=None) -> int:
         "chains": g.num_chains,
         "samples": g.total_samples,
         "samples_per_sec": round(g.total_samples / max(total, 1e-9), 1),
-        "use_pallas": bool(g.use_pallas),
         **{f"secs_{k}": round(v, 2) for k, v in t.items()},
         **{f"share_{k}": round(v / max(total, 1e-9), 4) for k, v in t.items()},
     }

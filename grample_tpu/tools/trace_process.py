@@ -1,6 +1,6 @@
 """Flatten a run trace's estimated-vars section to CSV with rank columns.
 
-The TPU-native counterpart of the reference's trace post-processor
+The counterpart of the reference's trace post-processor
 (``script/trace_file_process.py``): reads the JSON records under
 ``// VARS (ESTIMATED)`` in a trace file, flattens each variable's
 ``State`` dict into columns, and appends a ``<metric>-RANK`` column for

@@ -142,9 +142,9 @@ def test_object_detection_table_cap():
         break
 
 
-# ---- dense-256 collapse guard (r4: the gather bank under stacked
-# variants hard-crashed the TPU worker; collapse variants must stay on
-# the dense one-hot path) --------------------------------------------------
+# ---- dense-256 collapse guard (the gather bank under stacked variants
+# is the slow path; collapse variants must stay on the dense one-hot
+# path) ---------------------------------------------------------------------
 
 def _star(n_leaves: int, rng) -> DiscreteModel:
     """Binary star: center 0 coupled pairwise to each leaf (Promedus-like
@@ -172,8 +172,7 @@ def test_is_collapsible_oa_cap_guard(rng):
 def test_collapse_headroom_caps_stay_dense(rng):
     """Collapse-headroom caps classify replacement factors dense (no
     gather-bank growth) and a blanket-10 variant encodes with an empty
-    gather bank — the exact configuration that crashed the r3 TPU
-    worker when it held live gather rows."""
+    gather bank."""
     from grample_tpu.pgm.encode import (
         COLLAPSE_OA_DENSE_CAP,
         compute_caps,

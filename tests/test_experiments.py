@@ -1,7 +1,7 @@
 """Acceptance-harness semantics + the kelly19a adaptive>=plain claim.
 
 The full-suite artifact is produced by ``grample_tpu.tools.experiments``
-on TPU; here we validate the harness machinery and demonstrate the
+on the accelerator; here we validate the harness machinery and demonstrate the
 paper's core claim (adaptive Rao-Blackwellisation beats plain Gibbs) on
 ``deterministic.uai`` — a near-reducible net where plain chains freeze
 into their init mode while collapse yields the exact 0.5/0.5 marginal.

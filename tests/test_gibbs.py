@@ -93,7 +93,7 @@ def _perm_state(enc, state):
 
 
 def test_color_logits_match_bruteforce(rng):
-    """The sweep path (both base modes: the Wbase MXU matmul and the
+    """The sweep path (both base modes: the Wbase matmul and the
     row-gather, plus the one-hot local-table contraction) must agree with
     direct factor evaluation for every color group's vars."""
     from grample_tpu.ops.gibbs_xla import _color_logits
@@ -308,11 +308,11 @@ def test_rowgather_budget_selection_and_merge(rng):
     assert merge_caps(caps, ga).sweep_mode == "gather"
 
 
-@pytest.mark.parametrize("mode", ["matmul", "rowgather", "gather", "pallas"])
+@pytest.mark.parametrize("mode", ["matmul", "rowgather", "gather"])
 def test_mode_matrix_vs_exact(mode, rng):
-    """One model, every compute path (VERDICT r2 #8): the MXU-matmul base,
-    the rowgather base, the all-gather bank, and the Pallas kernel (Mosaic
-    interpret mode on CPU) must all converge to the exact marginals."""
+    """One model, every compute path: the matmul base, the rowgather
+    base and the all-gather bank must all converge to the exact
+    marginals."""
     import dataclasses
 
     from grample_tpu.pgm.encode import compute_caps
@@ -329,23 +329,14 @@ def test_mode_matrix_vs_exact(mode, rng):
             caps, base_mode="gather", adj_cap=0, oa_cap=1,
             gfac_cap=caps.adj_cap + caps.gfac_cap,
         )
-    chains = 128 if mode == "pallas" else 512
     g = ChainGroup(
-        m, chains_per_variant=chains, converge_window=64, seed=13, caps=caps
+        m, chains_per_variant=512, converge_window=64, seed=13, caps=caps
     )
-    if mode == "pallas":
-        # eligibility requires a TPU backend; force the interpret path
-        g.use_pallas = True
-        g.pal_block = 128
     g.add_variant(m)
-    if mode == "pallas":
-        assert g.pal_stack is not None
-    else:
-        assert (g.stack.get("sw_wbase") is not None) == (mode == "matmul")
+    assert (g.stack.get("sw_wbase") is not None) == (mode == "matmul")
     g.burn(40)
-    win, nwin = (60, 4) if mode == "pallas" else (100, 6)
-    for _ in range(nwin):
-        g.advance(win)
+    for _ in range(6):
+        g.advance(100)
     est = g.merged_marginals()
     est = est / est.sum(axis=1, keepdims=True)
     h = hellinger(est, truth, m.cards)
@@ -378,9 +369,9 @@ def test_deterministic_uai_marginals():
 
 def test_base_dense_limit_avoids_live_gather_rows(rng):
     """Models whose largest base incidence fits BASE_DENSE_LIMIT encode
-    fully dense (r4: live gather-bank rows under stacked variants
-    deterministically crashed the TPU worker on dv-rel_3/dv-rel_4HW,
-    whose scope-10 1024-entry tables put every incidence at OA 512)."""
+    fully dense (dv-rel_3/dv-rel_4HW's scope-10 1024-entry tables put
+    every incidence at OA 512; live gather-bank rows under stacked
+    variants are the slow path)."""
     from grample_tpu.pgm.encode import BASE_DENSE_LIMIT, compute_caps
 
     # scope-10 binary factor, 1024 entries -> OA 512 per incidence

@@ -1,8 +1,7 @@
 """SplitChainGroup: fast plain slots + slow collapse slots.
 
-The split exists for TPU (Pallas-eligible plain caps vs rowgather
-collapse caps, see sampler/split.py); on the CPU test mesh both halves
-run the XLA sweep, but every semantic contract — variant routing,
+The split runs full-width plain caps beside reduced-chain rowgather
+collapse caps (see sampler/split.py); every semantic contract — variant routing,
 MergeChains any-collapsed-wins, PSRF masking, checkpoint round-trip —
 is backend-independent and validated here with ``split_group="on"``.
 """
